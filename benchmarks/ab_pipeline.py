@@ -1,12 +1,9 @@
 """A/B pipeline-knob benchmark: stream compaction x spp batching per scene.
 
-Round 2 turned `compact=True` / `spp_batch=16` on globally and lost 2.6x on
-the Cornell headline (VERDICT r2 weak #2/#3). This benchmark makes the two
-knobs data-driven the same way the Pallas brute-force switch is
-(out/AB_INTERSECT.json): for each BASELINE-class scene, time the full
-progressive render under {compact} x {spp_batch} and report rays/s. The
-winning combination per scene class is what bench.py ships, and
-models.pathtracer.auto_pipeline documents the resulting policy.
+This benchmark makes the two pipeline knobs data-driven: for each
+BASELINE-class scene, time the full progressive render under {compact} x
+{spp_batch} and report rays/s. The winning combination per scene class is
+what bench.py should ship.
 
 Reference match: compaction exists to SAVE work (pt_sortHits.compute:17-39)
 — a configuration where it costs more than it saves is a bug in the policy,
@@ -31,7 +28,7 @@ import jax
 
 def _scenes(smoke: bool):
     """(name, scene, camera, base_cfg_kwargs, bvh_method) tuples."""
-    from ba_pathtracing_fur_tpu.scene.builtins import (
+    from ba_pathtracing_fur.scene.builtins import (
         cornell_box, fur_patch, tri_terrain)
 
     res = (64, 64) if smoke else (256, 256)
@@ -70,10 +67,10 @@ def main(argv=None):
                    help="comma-separated spp_batch values to sweep")
     args = p.parse_args(argv)
 
-    from ba_pathtracing_fur_tpu.models.pathtracer import (
+    from ba_pathtracing_fur.models.pathtracer import (
         RenderConfig, render_image)
-    from ba_pathtracing_fur_tpu.ops import traverse
-    from ba_pathtracing_fur_tpu.scene.types import to_device
+    from ba_pathtracing_fur.ops import traverse
+    from ba_pathtracing_fur.scene.types import to_device
 
     batches = [int(b) for b in args.batches.split(",")]
     key = jax.random.key(0)
@@ -104,8 +101,8 @@ def main(argv=None):
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     payload = {"metric": "ab_pipeline",
-               "device": getattr(jax.devices()[0], "device_kind",
-                                 jax.devices()[0].platform),
+               "platform": jax.devices()[0].platform,
+               "device": jax.devices()[0].device_kind,
                "table": table}
     with open(args.out, "w") as f:
         json.dump(payload, f, indent=1)

@@ -31,7 +31,7 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def _measure(scene, camera, cfg, rays, repeats=2):
-    from ba_pathtracing_fur_tpu.models.pathtracer import render_image
+    from ba_pathtracing_fur.models.pathtracer import render_image
 
     key = jax.random.key(0)
     fn = jax.jit(lambda s, k: render_image(s, camera, k, cfg))
@@ -47,10 +47,10 @@ def _measure(scene, camera, cfg, rays, repeats=2):
 def main() -> None:
     import multiprocessing
 
-    from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig
-    from ba_pathtracing_fur_tpu.ops import traverse
-    from ba_pathtracing_fur_tpu.scene import builtins
-    from ba_pathtracing_fur_tpu.scene.types import to_device
+    from ba_pathtracing_fur.models.pathtracer import RenderConfig
+    from ba_pathtracing_fur.ops import traverse
+    from ba_pathtracing_fur.scene import builtins
+    from ba_pathtracing_fur.scene.types import to_device
 
     out = {}
     # config 1: Cornell diffuse 256^2 (spp reduced; rate is per-sample)

@@ -31,12 +31,12 @@ import numpy as np
 
 
 def main() -> None:
-    from ba_pathtracing_fur_tpu.models.pathtracer import (
+    from ba_pathtracing_fur.models.pathtracer import (
         RenderConfig, render_sample)
-    from ba_pathtracing_fur_tpu.ops import traverse
-    from ba_pathtracing_fur_tpu.scene import builtins
-    from ba_pathtracing_fur_tpu.scene.types import to_device
-    from ba_pathtracing_fur_tpu.utils import checkpoint as ckpt_mod, film
+    from ba_pathtracing_fur.ops import traverse
+    from ba_pathtracing_fur.scene import builtins
+    from ba_pathtracing_fur.scene.types import to_device
+    from ba_pathtracing_fur.utils import checkpoint as ckpt_mod, film
 
     fibers = int(os.environ.get("FLAGSHIP_FIBERS", "1000000"))
     res = int(os.environ.get("FLAGSHIP_RES", "1024"))
@@ -48,7 +48,7 @@ def main() -> None:
     stats: dict = {"fibers": fibers, "res": [res, res], "spp": spp,
                    "depth": 4}
 
-    # On-device scene generation (r5): the fiber pack is a pure jit of the
+    # On-device scene generation: the fiber pack is a pure jit of the
     # threefry draws, so the ~90 s host-numpy growth and the 600 MB pack
     # upload are gone; the BVH split gets host centroids recomputed from
     # the same 20 MB of draws (builtins.LAST_HAIRBALL_GEN). Set
@@ -66,8 +66,7 @@ def main() -> None:
     t0 = time.perf_counter()
     scene = traverse.attach_bvh(scene, method="median",
                                 cone_split_hint=hint)
-    if scene.cone_bvh is not None:
-        jax.block_until_ready(scene.cone_bvh.prim_hbm if scene.cone_bvh.packed is None else scene.cone_bvh.packed)
+    jax.block_until_ready(scene)
     stats["bvh_build_s"] = round(time.perf_counter() - t0, 1)
     stats["bvh_build_stages"] = dict(traverse.LAST_BUILD_STATS)
     scene = to_device(scene)
@@ -75,11 +74,9 @@ def main() -> None:
     stats["time_to_first_ray_s"] = round(
         stats["scene_gen_s"] + stats["bvh_build_s"], 1)
 
-    # r4: kernel path, compaction is overhead; r5: fused shade stage +
-    # joint closest/shadow traversal (auto via joint_shadows when the
-    # streaming BVH is attached) — matches bench.py's hair_ball config
-    cfg = RenderConfig(depth=4, spp=spp, ray_chunk=1024, compact=False,
-                       fused_shading=True)  # chunk 1024: bench-measured best
+    # matches bench.py's hair_ball config
+    cfg = RenderConfig(depth=4, spp=spp, ray_chunk=65536, compact=False,
+                       fused_shading=True)
     key = jax.random.key(0)
 
     # --- one differentiable step on the fur lobe parameters at full scale

@@ -2,8 +2,8 @@
 
 The reference's live surface is ImGui panels over the render (SURVEY §2
 row 39); the replacement is this file-based report: render gallery +
-key/value panels for the bench, pipeline/intersect A/B tables, CPU
-baseline, scaling sweep, and the flagship run.
+key/value panels for the pipeline A/B table, the BVH build bench, the CPU
+baseline, the profiler summary, and the flagship run.
 
 Usage:  python benchmarks/make_report.py
 """
@@ -32,9 +32,9 @@ def main() -> None:
     import numpy as np
     from PIL import Image
 
-    from ba_pathtracing_fur_tpu.utils.report import RenderReport as Report
+    from ba_pathtracing_fur.utils.report import RenderReport as Report
 
-    rep = Report(title="ba_pathtracing_fur_tpu — round 4")
+    rep = Report(title="ba_pathtracing_fur")
 
     for png, label in [("flagship_hair_ball.png", "flagship 1M-fiber ball"),
                        ("hair_ball.png", "hair ball (r2)"),
@@ -63,33 +63,10 @@ def main() -> None:
             f"cached{i}": b for i, b in enumerate(bb.get("cached_builds", []))
         })
 
-    bf = _load("AB_BF16.json")
-    # .get defaults: a partial/interrupted AB_BF16.json must not take the
-    # whole report down with a KeyError
-    if bf and "f32" in bf and "bf16" in bf:
-        rep.add_panel("bf16 streaming-DMA A/B", {
-            "f32": f'{bf["f32"].get("rays_per_s", 0)/1e6:.2f}M rays/s',
-            "bf16": f'{bf["bf16"].get("rays_per_s", 0)/1e6:.2f}M rays/s',
-            "verdict": bf.get("verdict", "?").split(".")[0]})
-
-    jt = _load("AB_JOINT.json")
-    if jt and "separate" in jt and "joint" in jt:
-        rep.add_panel("joint closest+shadow pass A/B (r5)", {
-            "separate": f'{jt["separate"].get("rays_per_s", 0)/1e6:.2f}M rays/s',
-            "joint": f'{jt["joint"].get("rays_per_s", 0)/1e6:.2f}M rays/s',
-            "verdict": jt.get("verdict", "?").split(".")[0]})
-
     base = _load("CPU_BASELINE.json")
     if base:
         rep.add_panel("CPU baseline (measured, bench host)", {
             k: v["rays_per_s"] for k, v in base["configs"].items()})
-
-    scal = _load("SCALING.json")
-    if scal:
-        from ba_pathtracing_fur_tpu.parallel.scaling import scaling_panel
-        for name, run in scal["runs"].items():
-            rep.add_panel(f"scaling {name}", scaling_panel(run["rows"]))
-        rep.add_panel("scaling caveat", {"note": scal["caveat"]})
 
     ab = _load("AB_PIPELINE.json")
     if ab:

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.models import bdpt
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.scene import builtins
+from ba_pathtracing_fur.models import bdpt
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.scene import builtins
 
 
 def _scene():

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.ops import bruteforce, traverse
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box, fur_patch
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.ops import bruteforce, traverse
+from ba_pathtracing_fur.scene.builtins import cornell_box, fur_patch
 
 
 def _random_rays(n, seed, lo=-2.0, hi=2.0, aim=None):
@@ -112,7 +112,7 @@ def test_accel_family_matches_bruteforce(method):
 
 
 def test_accel_debug_info():
-    from ba_pathtracing_fur_tpu.ops import bvh as bvh_mod
+    from ba_pathtracing_fur.ops import bvh as bvh_mod
 
     scene, _ = cornell_box(resolution=(8, 8))
     acc = traverse.attach_bvh(scene, leaf_size=4, method="sah", min_prims=1)
@@ -126,8 +126,8 @@ def test_accel_debug_info():
 def test_sah_beats_or_matches_morton_cost():
     """SAH clusters should not be worse than raw morton clusters on the
     quality metric that predicts traversal rounds."""
-    from ba_pathtracing_fur_tpu.ops import bvh as bvh_mod
-    from ba_pathtracing_fur_tpu.ops.intersect import cone_aabbs
+    from ba_pathtracing_fur.ops import bvh as bvh_mod
+    from ba_pathtracing_fur.ops.intersect import cone_aabbs
 
     scene, _ = fur_patch(resolution=(8, 8), fibers_per_face=8, fiber_verts=5)
     bmin, bmax = cone_aabbs(scene.cones)

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.ops import compact
-from ba_pathtracing_fur_tpu.scene import builtins
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.ops import compact
+from ba_pathtracing_fur.scene import builtins
 
 
 def test_compaction_permutation_stable():

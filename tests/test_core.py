@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.core import camera as cam_mod, rng, sampling as sp, vecmath as vm
+from ba_pathtracing_fur.core import camera as cam_mod, rng, sampling as sp, vecmath as vm
 
 
 def test_reflect_refract_roundtrip():
@@ -90,7 +90,7 @@ def test_rng_reproducible_and_distinct():
 
 
 def test_bessel_j0_known_values():
-    from ba_pathtracing_fur_tpu.models.fur import bessel_j0
+    from ba_pathtracing_fur.models.fur import bessel_j0
     xs = jnp.array([0.0, 1.0, 2.4048255577, 5.0, 10.0])
     ref = np.array([1.0, 0.7651976866, 0.0, -0.1775967713, -0.2459357645])
     np.testing.assert_allclose(np.asarray(bessel_j0(xs)), ref, atol=2e-6)

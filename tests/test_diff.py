@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu import diff
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box, fur_patch
+from ba_pathtracing_fur import diff
+from ba_pathtracing_fur.models.pathtracer import RenderConfig
+from ba_pathtracing_fur.scene.builtins import cornell_box, fur_patch
 
 CFG = RenderConfig(depth=2, spp=1, ray_chunk=1024)
 
@@ -51,7 +51,7 @@ def test_fit_recovers_wall_color():
     scene, camera = cornell_box(resolution=(16, 16))
     key = jax.random.key(3)
     # target: the true render; start: perturbed diffuse
-    from ba_pathtracing_fur_tpu.models.pathtracer import render_image
+    from ba_pathtracing_fur.models.pathtracer import render_image
     target = render_image(scene, camera, key, CFG)
     mats = scene.materials
     wrong_diffuse = np.array(mats.diffuse)
@@ -68,7 +68,7 @@ def test_fit_recovers_wall_color():
 
 
 def test_grad_with_bvh_attached():
-    from ba_pathtracing_fur_tpu.ops import traverse
+    from ba_pathtracing_fur.ops import traverse
     scene, camera = cornell_box(resolution=(12, 12))
     acc = traverse.attach_bvh(scene, min_prims=1)
     key = jax.random.key(4)

@@ -25,7 +25,7 @@ ENFORCE = os.environ.get("DRYRUN_BUDGET_ENFORCE", "1") not in ("0", "false")
 
 def test_dryrun_multichip_wall_budget():
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)  # dryrun sets its own platform config
+    env["JAX_PLATFORMS"] = "cpu"  # dryrun makes the 8 virtual devices
     env.pop("XLA_FLAGS", None)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")

@@ -5,8 +5,8 @@ models/shade_core) must integrate the IDENTICAL estimator: same RNG
 streams, same masks, same quirks. Differences are limited to isolated
 float-boundary decision flips (a comparison landing on the other side
 under different op fusion), so gates are mean + flip fraction, matching
-tests/test_reference_parity.py's rationale. Runs in Pallas interpret mode
-off-TPU.
+tests/test_reference_parity.py's rationale. The level-2 kernel's own tests
+(interpret mode here, compiled on a GPU) are in tests/test_full_kernel.py.
 """
 
 import jax
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.core import camera as cam_mod, rng
-from ba_pathtracing_fur_tpu.models import pathtracer as pt
-from ba_pathtracing_fur_tpu.scene import builtins
+from ba_pathtracing_fur.core import camera as cam_mod, rng
+from ba_pathtracing_fur.models import pathtracer as pt
+from ba_pathtracing_fur.scene import builtins
 
 
 def _compare(scene, cam, cfg_kw, res, atol_mean=5e-3, flip_frac=0.02):
@@ -59,8 +59,8 @@ def test_fused_with_compaction():
 
 
 def test_fused_single_bounce_exact():
-    """From a clean wavefront, one fused bounce (both modes) reproduces
-    trace_bounce field-for-field at f32 tolerance."""
+    """From a clean wavefront, one fused bounce (the XLA shade stage)
+    reproduces trace_bounce field-for-field at f32 tolerance."""
     scene, cam = builtins.fur_patch(resolution=(12, 12), fibers_per_face=4,
                                     fiber_verts=4)
     key = jax.random.key(3)
@@ -75,54 +75,12 @@ def test_fused_single_bounce_exact():
     cfg = pt.RenderConfig(depth=2, spp=1, ray_chunk=256, compact=False)
     for bounce in range(3):
         ref = pt.trace_bounce(st, scene, keys, bounce, cfg)
-        for mode in ("xla", "kernel"):
-            got = pt.trace_bounce_fused(st, scene, keys, bounce, cfg,
-                                        mode=mode)
-            for f in ("origin", "direction", "radiance", "color", "flags",
-                      "theta_i", "prev_pdf"):
-                a = np.asarray(getattr(ref, f), np.float64)
-                b = np.asarray(getattr(got, f), np.float64)
-                bad = np.abs(a - b) > 1e-4 + 1e-4 * np.abs(a)
-                assert bad.mean() < 0.02, \
-                    f"bounce {bounce} mode {mode} field {f}: " \
-                    f"{bad.mean():.4f} mismatched"
+        got = pt.trace_bounce_fused(st, scene, keys, bounce, cfg)
+        for f in ("origin", "direction", "radiance", "color", "flags",
+                  "theta_i", "prev_pdf"):
+            a = np.asarray(getattr(ref, f), np.float64)
+            b = np.asarray(getattr(got, f), np.float64)
+            bad = np.abs(a - b) > 1e-4 + 1e-4 * np.abs(a)
+            assert bad.mean() < 0.02, \
+                f"bounce {bounce} field {f}: {bad.mean():.4f} mismatched"
         st = ref
-
-
-def test_fused_joint_shadows_stream():
-    """Joint closest+shadow mixed streaming pass (cfg.joint_shadows) vs the
-    unfused reference image: same estimator, NEE resolved one fori_loop
-    iteration later, so only float-noise differences are allowed. Forces
-    the streaming kernel (interpret mode off-TPU) on a small hair ball —
-    cones carry the stream BVH, the scalp triangles stay BVH-less and are
-    folded in brute-force, exercising the side-pack branch."""
-    from ba_pathtracing_fur_tpu.ops import traverse
-
-    scene, cam = builtins.hair_ball(resolution=(12, 12), n_fibers=600,
-                                    fiber_verts=4)
-    # min_prims between the 1024 scalp tris (stay BVH-less, side-pack
-    # branch) and the ~1.8k fur cones (get the stream BVH)
-    scene = traverse.attach_bvh(scene, method="median", min_prims=1200,
-                                leaf_size=64, fanout=8)
-    traverse.enable_stream_traversal(True)
-    try:
-        assert traverse.joint_eligible(scene)
-        key = jax.random.key(0)
-        kw = dict(depth=3, spp=2, ray_chunk=256, compact=False)
-        a = np.asarray(pt.render_image(scene, cam, key,
-                                       pt.RenderConfig(**kw)))
-        b = np.asarray(pt.render_image(scene, cam, key, pt.RenderConfig(
-            **kw, fused_shading=True, joint_shadows=True)))
-        assert np.all(np.isfinite(b))
-        d = np.abs(a - b)
-        assert np.mean(d) < 5e-3, f"mean {np.mean(d)}"
-        assert np.mean(d.max(-1) > 1e-3) <= 0.02, \
-            f"flips {np.mean(d.max(-1) > 1e-3)}"
-        # and with compaction (pend lanes must survive the permutation)
-        c = np.asarray(pt.render_image(scene, cam, key, pt.RenderConfig(
-            **{**kw, "compact": True}, fused_shading=True,
-            joint_shadows=True)))
-        d2 = np.abs(b - c)
-        assert np.mean(d2) < 1e-5, f"compact drift {np.mean(d2)}"
-    finally:
-        traverse.enable_stream_traversal(None)

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.ops import bruteforce, intersect as isect
-from ba_pathtracing_fur_tpu.scene.types import (
+from ba_pathtracing_fur.ops import bruteforce, intersect as isect
+from ba_pathtracing_fur.scene.types import (
     DeviceScene, Environment, empty_cone_pack, empty_triangle_pack,
     make_cone_pack, make_light_pack, make_material_table, make_triangle_pack,
 )

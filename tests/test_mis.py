@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.models import bsdf as bsdf_mod, shading
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.scene import builtins
-from ba_pathtracing_fur_tpu.scene.types import (
+from ba_pathtracing_fur.models import bsdf as bsdf_mod, shading
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.scene import builtins
+from ba_pathtracing_fur.scene.types import (
     BSDF_GLOSSY, BSDF_LAMBERT, SHADER_SIMPLE, make_light_pack,
 )
 
@@ -123,7 +123,7 @@ def test_mis_direct_lighting_matches_light_only_estimator():
     # BSDF samples: cosine hemisphere about +y, connect to the quad by
     # intersecting the light plane y=2 (quad spans |x|,|z| <= 0.5)
     u2 = jax.random.uniform(k2, (n, 2))
-    from ba_pathtracing_fur_tpu.core import sampling as sp
+    from ba_pathtracing_fur.core import sampling as sp
     local = sp.cosine_sample_hemisphere(u2)
     d = jnp.stack([local[:, 0], local[:, 2], local[:, 1]], axis=-1)  # z->y up
     t_hit = 2.0 / jnp.maximum(d[:, 1], 1e-6)

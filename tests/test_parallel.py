@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.parallel import make_mesh, render_image_sharded
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box, fur_patch
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.parallel import make_mesh, render_image_sharded
+from ba_pathtracing_fur.scene.builtins import cornell_box, fur_patch
 
 CFG = RenderConfig(depth=3, spp=2, ray_chunk=4096)
 
@@ -47,7 +47,7 @@ def test_geo_sharding_fur_scene():
 
 
 def test_train_step_reduces_loss():
-    from ba_pathtracing_fur_tpu.parallel import TrainState, train_step
+    from ba_pathtracing_fur.parallel import TrainState, train_step
 
     scene, camera = cornell_box(resolution=(16, 16))
     cfg = RenderConfig(depth=2, spp=1, ray_chunk=1024)
@@ -65,7 +65,7 @@ def test_train_step_reduces_loss():
 def test_dp_sharding_with_replicated_bvh():
     """dp-only fast path: a replicated LBVH traverses inside each pixel
     shard, matching the single-device BVH render bit-for-bit."""
-    from ba_pathtracing_fur_tpu.ops import traverse
+    from ba_pathtracing_fur.ops import traverse
 
     scene, camera = fur_patch(resolution=(16, 16), fibers_per_face=8,
                               fiber_verts=4)
@@ -82,8 +82,8 @@ def test_dp_sharding_with_replicated_bvh():
 def test_geo_sharding_with_per_shard_bvhs():
     """Geo-sharded per-shard BVH traversal (shard_scene_bvh) matches the
     single-device BVH render — VERDICT r1 missing #4 done-criterion."""
-    from ba_pathtracing_fur_tpu.ops import traverse
-    from ba_pathtracing_fur_tpu.parallel.render import shard_scene_bvh
+    from ba_pathtracing_fur.ops import traverse
+    from ba_pathtracing_fur.parallel.render import shard_scene_bvh
 
     scene, camera = fur_patch(resolution=(16, 16), fibers_per_face=8,
                               fiber_verts=4)
@@ -106,7 +106,7 @@ def test_geo_capacity_axis():
     pack budget the whole scene does not fit on one device, required_geo
     picks the shard factor whose slices DO fit, and the geo-sharded render
     still matches the unsharded reference exactly."""
-    from ba_pathtracing_fur_tpu.parallel.render import (
+    from ba_pathtracing_fur.parallel.render import (
         required_geo, scene_geo_bytes)
 
     # fibers_per_face=16: densest configuration that is bit-exact between

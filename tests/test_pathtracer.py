@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.models import pathtracer as pt
-from ba_pathtracing_fur_tpu.scene import builtins
+from ba_pathtracing_fur.models import pathtracer as pt
+from ba_pathtracing_fur.scene import builtins
 
 
 def _render(scene, cam, spp=4, depth=3):

@@ -1,6 +1,6 @@
-"""Independent reference parity: TPU renderer vs the KIRK-CPU oracle.
+"""Independent reference parity: JAX renderer vs the KIRK-CPU oracle.
 
-The oracle (`ba_pathtracing_fur_tpu.validation.kirk_cpu_oracle`) is a
+The oracle (`ba_pathtracing_fur.validation.kirk_cpu_oracle`) is a
 double-precision numpy transliteration of the reference's CPU math written
 from the C++ only — it imports NOTHING from models/ops. Both renderers are
 driven with the SAME threefry uniforms (core.rng is the injection seam), so
@@ -16,10 +16,10 @@ import jax
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.core import rng
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box
-from ba_pathtracing_fur_tpu.validation import kirk_cpu_oracle as oracle
+from ba_pathtracing_fur.core import rng
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.scene.builtins import cornell_box
+from ba_pathtracing_fur.validation import kirk_cpu_oracle as oracle
 
 RES = (32, 32)
 SPP = 8
@@ -98,7 +98,7 @@ def test_cornell_pt_allclose_vs_kirk_oracle(tmp_path):
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "out")
     if os.path.isdir(out_dir):
-        from ba_pathtracing_fur_tpu.utils import film
+        from ba_pathtracing_fur.utils import film
         film.write_png(os.path.join(out_dir, "parity_cornell_ours.png"),
                        ours.astype(np.float32))
         film.write_png(os.path.join(out_dir, "parity_cornell_oracle.png"),

@@ -10,9 +10,9 @@ import sys
 
 import pytest
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig
-from ba_pathtracing_fur_tpu.parallel import measure_scaling, scaling_panel
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box
+from ba_pathtracing_fur.models.pathtracer import RenderConfig
+from ba_pathtracing_fur.parallel import measure_scaling, scaling_panel
+from ba_pathtracing_fur.scene.builtins import cornell_box
 
 
 def test_measure_scaling_rows():
@@ -37,7 +37,7 @@ def test_scaling_cli_json():
         XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=4")
     out = subprocess.run(
-        [sys.executable, "-m", "ba_pathtracing_fur_tpu.parallel.scaling",
+        [sys.executable, "-m", "ba_pathtracing_fur.parallel.scaling",
          "--devices", "2", "--res", "8", "--spp", "1", "--depth", "1"],
         env=env, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr
@@ -53,7 +53,7 @@ def test_multihost_initialize_single_process():
     test process."""
     code = (
         "import os; os.environ['JAX_PLATFORMS']='cpu'\n"
-        "from ba_pathtracing_fur_tpu.parallel import multihost_initialize\n"
+        "from ba_pathtracing_fur.parallel import multihost_initialize\n"
         "import jax\n"
         "multihost_initialize(coordinator_address='localhost:12757',"
         " num_processes=1, process_id=0)\n"

@@ -10,9 +10,9 @@ the host mirror must describe the actual device pack.
 import numpy as np
 import jax
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.ops import intersect as isect, traverse
-from ba_pathtracing_fur_tpu.scene import builtins
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.ops import intersect as isect, traverse
+from ba_pathtracing_fur.scene import builtins
 
 
 def test_host_centroids_match_device_pack():

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.scene import binmesh, graph, io as scene_io, obj
-from ba_pathtracing_fur_tpu.utils import film
+from ba_pathtracing_fur.scene import binmesh, graph, io as scene_io, obj
+from ba_pathtracing_fur.utils import film
 
 CUBE_OBJ = """
 v -1 -1 -1
@@ -82,7 +82,7 @@ def test_json_scene_load_flatten_render(cube_path, tmp_path):
     cam = cam.replace(resolution=(16, 16))
 
     import jax
-    from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
+    from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
     img = np.asarray(render_image(scene, cam, jax.random.key(0),
                                   RenderConfig(depth=2, spp=2, ray_chunk=1024)))
     assert np.isfinite(img).all()
@@ -142,7 +142,7 @@ def test_png_roundtrip(tmp_path):
 
 
 def test_cli_convert_and_render(cube_path, tmp_path, monkeypatch):
-    from ba_pathtracing_fur_tpu import cli
+    from ba_pathtracing_fur import cli
     out_mesh = str(tmp_path / "cube.b3df")
     assert cli.main(["convert", cube_path, out_mesh]) == 0
     assert os.path.exists(out_mesh)
@@ -169,7 +169,7 @@ def _write_ascii_ply(path):
 
 
 def test_ply_ascii_loader(tmp_path):
-    from ba_pathtracing_fur_tpu.scene import ply
+    from ba_pathtracing_fur.scene import ply
     p = tmp_path / "quad.ply"
     _write_ascii_ply(p)
     m = ply.load_ply(str(p))
@@ -185,7 +185,7 @@ def test_ply_ascii_loader(tmp_path):
 
 def test_ply_binary_roundtrip_matches_ascii(tmp_path):
     import struct
-    from ba_pathtracing_fur_tpu.scene import ply
+    from ba_pathtracing_fur.scene import ply
     pa = tmp_path / "a.ply"
     _write_ascii_ply(pa)
     ref = ply.load_ply(str(pa))
@@ -215,7 +215,7 @@ def test_ply_binary_roundtrip_matches_ascii(tmp_path):
 
 def test_json_scene_with_ply_renders(tmp_path):
     import jax
-    from ba_pathtracing_fur_tpu.models.pathtracer import (
+    from ba_pathtracing_fur.models.pathtracer import (
         RenderConfig, render_image)
     p = tmp_path / "quad.ply"
     _write_ascii_ply(p)

@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ba_pathtracing_fur_tpu.models import bsdf as bsdf_mod
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.scene import graph as graph_mod, io as scene_io, obj
-from ba_pathtracing_fur_tpu.scene.texture import build_atlas, fetch_bilinear
-from ba_pathtracing_fur_tpu.scene.types import make_material_table
-from ba_pathtracing_fur_tpu.utils import film
+from ba_pathtracing_fur.models import bsdf as bsdf_mod
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.scene import graph as graph_mod, io as scene_io, obj
+from ba_pathtracing_fur.scene.texture import build_atlas, fetch_bilinear
+from ba_pathtracing_fur.scene.types import make_material_table
+from ba_pathtracing_fur.utils import film
 
 QUAD_OBJ = """
 mtllib quad.mtl
@@ -174,7 +174,7 @@ def test_textured_render_differs_from_flat(textured_obj):
 def test_cube_env_load_and_shading(tmp_path):
     """Six distinct face colors; every principal direction must fetch its
     own face (loadCubeMap analog, jsonin.cpp:308-328)."""
-    from ba_pathtracing_fur_tpu.models import shading
+    from ba_pathtracing_fur.models import shading
     names = ("posx", "posy", "posz", "negx", "negy", "negz")
     colors = {"posx": (1, 0, 0), "posy": (0, 1, 0), "posz": (0, 0, 1),
               "negx": (1, 1, 0), "negy": (0, 1, 1), "negz": (1, 0, 1)}

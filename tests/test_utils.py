@@ -3,10 +3,10 @@
 import jax
 import numpy as np
 
-from ba_pathtracing_fur_tpu.models.pathtracer import RenderConfig, render_image
-from ba_pathtracing_fur_tpu.ops import tonemap
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box
-from ba_pathtracing_fur_tpu.utils import checkpoint as ckpt, clock, log
+from ba_pathtracing_fur.models.pathtracer import RenderConfig, render_image
+from ba_pathtracing_fur.ops import tonemap
+from ba_pathtracing_fur.scene.builtins import cornell_box
+from ba_pathtracing_fur.utils import checkpoint as ckpt, clock, log
 
 
 def test_checkpoint_resume_matches_straight_render(tmp_path):

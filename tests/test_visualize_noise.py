@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.ops import traverse, visualize
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box
-from ba_pathtracing_fur_tpu.scene.noise import fbm_noise, noise_texture, value_noise
+from ba_pathtracing_fur.ops import traverse, visualize
+from ba_pathtracing_fur.scene.builtins import cornell_box
+from ba_pathtracing_fur.scene.noise import fbm_noise, noise_texture, value_noise
 
 
 def test_visualize_structure_shapes_and_overlay():

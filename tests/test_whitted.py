@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ba_pathtracing_fur_tpu.models import whitted
-from ba_pathtracing_fur_tpu.scene.builtins import cornell_box, fur_patch
+from ba_pathtracing_fur.models import whitted
+from ba_pathtracing_fur.scene.builtins import cornell_box, fur_patch
 
 
 def test_whitted_cornell_smoke():
@@ -94,7 +94,7 @@ def test_whitted_adaptive_refines_edges():
 def test_record_hair_paths():
     scene, camera = fur_patch(resolution=(8, 8), fibers_per_face=8,
                               fiber_verts=5, fiber_radius=0.03)
-    from ba_pathtracing_fur_tpu.core import camera as cam_mod
+    from ba_pathtracing_fur.core import camera as cam_mod
     px, py = cam_mod.pixel_grid(camera.resolution)
     jit = jnp.full((px.shape[0], 2), 0.5)
     o, d = cam_mod.rays_from_pixels(camera, px, py, jit)
@@ -157,8 +157,8 @@ def test_light_shading_gated_compacted_wavefront_shadows():
     the cornell ceiling aiming down at the light (octant 7 — sorts LAST),
     dead lanes aim octant 0 (sorts first): with the bug, every live shadow
     ray lands in a gated-off chunk and reports unshadowed."""
-    from ba_pathtracing_fur_tpu.models import bsdf as bsdf_mod
-    from ba_pathtracing_fur_tpu.ops import traverse
+    from ba_pathtracing_fur.models import bsdf as bsdf_mod
+    from ba_pathtracing_fur.ops import traverse
 
     scene, _ = cornell_box(resolution=(8, 8))
     acc = traverse.attach_bvh(scene, min_prims=1)
